@@ -70,7 +70,7 @@ class Encoder:
         # "auto" | "spec" | "native" (reference: avifEncoder codecChoice,
         # avif.h:1545). "auto"/"spec" emit spec-conformant AV1 for both
         # lossless and lossy — files decode in dav1d/libaom everywhere;
-        # "native" opts into the TPU-pipelined own format (fast path).
+        # "native" opts into the device-pipelined own format (fast path).
         self.codec_choice = "auto"
         self.timescale = 1
         self.repetition_count = 0  # 0 = infinite (reference: avif.h repetition)
@@ -428,8 +428,7 @@ class Encoder:
                 groups.append([f])
         for grp in groups:
             # GOP split at requested keyframes: inter prediction never
-            # crosses a sync sample (random access + parallel/hosts GOP
-            # sharding rely on this)
+            # crosses a sync sample (random access relies on this)
             gops: list[list[_PendingFrame]] = []
             for f in grp:
                 if gops and not f.keyframe:
@@ -932,7 +931,7 @@ def encode_batch(
     host entropy for frame k (the production serving path — see
     codec.frame.encode_frames_pipelined). Alpha/metadata follow the same
     item-graph rules as Encoder.write per image. codec="native" selects
-    the TPU-pipelined own format (maximum device throughput, bench.py);
+    the device-pipelined own format (maximum device throughput, bench.py);
     the default emits spec-conformant AV1 like Encoder.write."""
     from ..codec.frame import FrameParams, encode_frames_pipelined
 

@@ -15,7 +15,7 @@ def build_parser() -> argparse.ArgumentParser:
     from ..constants import VERSION
 
     p = argparse.ArgumentParser(
-        prog="avifdec", description="Decode AVIF files (TPU-native codec)"
+        prog="avifdec", description="Decode AVIF files (JAX-native codec)"
     )
     p.add_argument("-V", "--version", action="version", version=f"avifdec (libavif_tpu) {VERSION}")
     p.add_argument("input", help="input.avif")
@@ -114,4 +114,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from ..utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     sys.exit(main())

@@ -18,7 +18,7 @@ def build_parser() -> argparse.ArgumentParser:
     from ..constants import VERSION
 
     p = argparse.ArgumentParser(
-        prog="avifenc", description="Encode images to AVIF (TPU-native codec)"
+        prog="avifenc", description="Encode images to AVIF (JAX-native codec)"
     )
     p.add_argument("-V", "--version", action="version", version=f"avifenc (libavif_tpu) {VERSION}")
     p.add_argument(
@@ -61,7 +61,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "-c", "--codec", choices=("auto", "spec", "native"), default="auto",
         help="auto/spec: spec-conformant AV1 (decodes in any AVIF "
-        "viewer; the default); native: the TPU-pipelined own format "
+        "viewer; the default); native: the device-pipelined own format "
         "(fastest, decodes only with this framework)",
     )
     p.add_argument(
@@ -392,4 +392,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    from ..utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     sys.exit(main())

@@ -533,15 +533,12 @@ def plan_luma(src: np.ndarray, qindex: int, speed: int, bd: int = 8,
         # angle-delta argmins as batched GEMMs/gathers (rdsearch_device).
         # Batch encoders dispatch the program ahead of time and pass the
         # handle so device RD overlaps host entropy across frames.
-        try:
-            from . import rdsearch_device as RDD
+        from . import rdsearch_device as RDD
 
-            if dev_handle is not None:
-                dev = RDD.materialize_plan_costs(dev_handle)
-            else:
-                dev = RDD.plan_costs_device(src, qindex, speed, bd)
-        except Exception:
-            dev = None
+        if dev_handle is not None:
+            dev = RDD.materialize_plan_costs(dev_handle)
+        else:
+            dev = RDD.plan_costs_device(src, qindex, speed, bd)
     if dev is not None:
         cand_modes = dev["cand_modes"]
         per_size, qcost = {}, {}

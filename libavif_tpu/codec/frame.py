@@ -72,7 +72,7 @@ class FrameParams:
     cdef: bool | None = None  # None: auto (on for lossy; free ~+0.3 dB)
     # "auto"/"spec": spec-conformant AV1 for both lossless and lossy
     # (decodes in dav1d/libaom/every AVIF viewer; native-accelerated
-    # host RD loop). "native": the TPU-pipelined own format — the
+    # host RD loop). "native": the device-pipelined own format — the
     # opt-in fast path for device-throughput serving (bench.py).
     # LIBAVIF_TPU_SPEC_AV1=0 reverts "auto" to the native codec.
     codec: str = "auto"
@@ -236,25 +236,22 @@ def encode_frames_pipelined(
     if spec_on and not params.lossless:
         # spec-conformant AV1 is the default lossy output (matching the
         # reference, whose only encoder is libaom: write.c:2104-2114);
-        # codec="native" opts into the TPU-pipelined own format below.
+        # codec="native" opts into the device-pipelined own format below.
         # Dispatch every frame's device RD program up front (XLA async
         # dispatch queues them) so device compute for frame k+1 overlaps
         # host entropy for frame k — same pipelining as the native path.
         handles = [None] * len(images)
         if len(images) > 1 and params.speed is not None and params.speed <= 6:
-            try:
-                from .av1.rdsearch_device import dispatch_plan_costs
+            from .av1.rdsearch_device import dispatch_plan_costs
 
-                qindex = _spec_qindex(params)
-                handles = [
-                    dispatch_plan_costs(
-                        np.asarray(im.yuv_planes[0], dtype=np.int32),
-                        qindex, params.speed, im.depth,
-                    )
-                    for im in images
-                ]
-            except Exception:
-                handles = [None] * len(images)
+            qindex = _spec_qindex(params)
+            handles = [
+                dispatch_plan_costs(
+                    np.asarray(im.yuv_planes[0], dtype=np.int32),
+                    qindex, params.speed, im.depth,
+                )
+                for im in images
+            ]
         return [
             _encode_frame_spec_lossy(im, params, dev_handle=h)
             for im, h in zip(images, handles)
@@ -591,7 +588,7 @@ def encode_frame(image: Image, params: FrameParams) -> tuple[bytes, SequenceHead
     if spec_on and not params.lossless:
         # default lossy output is spec-conformant AV1 (the reference's
         # only encoder is libaom, write.c:2104-2114); codec="native"
-        # opts into the TPU-pipelined own format
+        # opts into the device-pipelined own format
         return _encode_frame_spec_lossy(image, params)
     if params.lossless and spec_on:
         # lossless rides the spec-conformant AV1 path at every depth so

@@ -1,7 +1,7 @@
 """Device-side codec core: wavefront reconstruction & encoder mode search.
 
-TPU-first design
-----------------
+Design
+------
 The sequential dependency of intra prediction (each block predicts from its
 reconstructed top/left neighbors — SURVEY.md §7 hard-parts #3) is scheduled
 as a **wavefront over anti-diagonals**: all blocks with the same r+c are
@@ -16,8 +16,8 @@ never the growing plane. Lane r at diagonal d handles block (r, d-r), so
   left(r, c)     = right col  of (r, c-1)   = same lane, previous step
   topleft(r, c)  = last pixel of top(r, c-1) = carried per lane
 
-which turns every neighbor access into a lane shift (pure VPU) instead of
-a gather/scatter against HBM. Block data moves through the scan as
+which turns every neighbor access into a lane shift (elementwise work on
+the carried state) instead of a gather/scatter against device memory. Block data moves through the scan as
 pre-arranged diagonal-major tensors (one parallel gather before the scan,
 one after) — this is what makes the wavefront latency-bound only on real
 dependencies.
@@ -190,7 +190,7 @@ def decode_plane(levels, modes, dc_step, ac_step, tx_types=None, *, n: int, dept
     maxv = (1 << depth) - 1
     mid = 1 << (depth - 1)
 
-    # Residual synthesis is recon-independent: one big batched MXU pass.
+    # Residual synthesis is recon-independent: one big batched pass.
     flat = levels.reshape(-1, n, n)
     if lossless:
         residuals = inverse_transform(flat, WHT_WHT, n)
@@ -205,7 +205,7 @@ def decode_plane(levels, modes, dc_step, ac_step, tx_types=None, *, n: int, dept
             residuals = inverse_transform(deq, DCT_DCT, n)
         else:
             # Per-block transform type: evaluate each basis over all
-            # blocks (batched MXU) and mask-select (no gathers).
+            # blocks (batched) and mask-select (no gathers).
             txf = jnp.clip(tx_types.reshape(-1), 0, N_TX - 1)
             if n > 16:
                 # ADST bases exist only for n<=16; treat those symbols as DCT.
@@ -354,11 +354,10 @@ def encode_plane(src, dc_step, ac_step, *, n: int, depth: int, lossless: bool, s
 
 # ------------------------------------------------- packed frame-level calls
 #
-# The host↔device link is latency-bound (one round trip costs ~10-40 ms on
-# PCIe-class links), so the frame layer ships ALL planes in one packed
-# buffer and gets all results back in one packed buffer: exactly one
-# upload and one fetch per frame (SURVEY.md §7 hard-parts #6, host/device
-# boundary hygiene).
+# Every host<->device copy pays a fixed latency on top of its bytes, so
+# the frame layer ships ALL planes in one packed buffer and gets all
+# results back in one packed buffer: exactly one upload and one fetch per
+# frame (SURVEY.md §7 hard-parts #6, host/device boundary hygiene).
 #
 # Packing layout per plane, concatenated in plane order:
 #   [modes (Rb*Cb)] [tx_types (Rb*Cb)] [levels (Rb*Cb*n*n)]
@@ -385,7 +384,7 @@ def encode_frame_device(packed, dc_step, ac_step, *, geoms, n: int, depth: int, 
 
     Same-geometry planes (U and V, grid cells) are grouped and vmapped so
     the compiled program contains ONE wavefront body per distinct shape —
-    program size drives (remote) compile time."""
+    program size drives compile time."""
     out_dtype = pack_dtype(lossless)
     # plane index -> (offset, geom); group by geom preserving output order
     offs = []

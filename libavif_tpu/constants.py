@@ -1,4 +1,4 @@
-"""Core enums and constants for the TPU-native AVIF engine.
+"""Core enums and constants for the JAX-native AVIF engine.
 
 Mirrors the semantic surface of the reference public header
 (``include/avif/avif.h``): result codes (avif.h:164-204), pixel formats

@@ -8,7 +8,7 @@ references (iref), groups (grpl), the primary item (pitm), inline data
 Reference call stack: avifParse (read.c:4801) and the per-box parsers at
 read.c:1980-4400. This is a fresh implementation: the parse result is an
 explicit host-side model handed to the decode planner, which then ships
-concatenated tile payloads to the TPU in one transfer.
+concatenated tile payloads to the device in one transfer.
 """
 
 from __future__ import annotations

@@ -360,7 +360,7 @@ class RGBImage:
         self.format = RGBFormat(fmt)
         self.chroma_upsampling = ChromaUpsampling.AUTOMATIC
         self.chroma_downsampling = ChromaDownsampling.AUTOMATIC
-        self.avoid_libyuv = False  # kept for API parity; no-op on TPU
+        self.avoid_libyuv = False  # kept for API parity; no-op here
         self.ignore_alpha = False
         self.alpha_premultiplied = False
         self.is_float = False  # depth must be 16 when set (half floats)

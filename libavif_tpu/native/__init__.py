@@ -21,6 +21,7 @@ _SRC = _DIR / "msac.cc"
 _LOCK = threading.Lock()
 _lib = None
 _tried = False
+_error = None
 
 
 _CXXFLAGS = ["-O3", "-std=c++17"]
@@ -58,8 +59,9 @@ def _build(so_path: pathlib.Path) -> None:
 
 
 def load():
-    """The msac native library, or None when unavailable."""
-    global _lib, _tried
+    """The msac native library, or None when unavailable (load_error()
+    then says why)."""
+    global _lib, _tried, _error
     if _lib is not None or _tried:
         return _lib
     with _LOCK:
@@ -197,6 +199,13 @@ def load():
                 ctypes.POINTER(ctypes.c_int32),
             ]
             _lib = lib
-        except Exception:
+        except Exception as e:  # no toolchain or a failed build: Python fallback
+            stderr = getattr(e, "stderr", None) or b""
+            _error = f"{type(e).__name__}: {e}\n{stderr.decode(errors='replace')}"
             _lib = None
         return _lib
+
+
+def load_error():
+    """Why load() returned None, if it tried and failed."""
+    return _error

@@ -159,8 +159,8 @@ def prepare_neighbors(top, left, topleft, have_top, have_left, n: int, mid: int)
 @functools.partial(jax.jit, static_argnames=("n",))
 def predict_all_modes(top, left, topleft, n: int):
     """All 13 modes at once: returns (B, N_MODES, n, n) int32 in MODE_SET
-    order. Used by the encoder's exhaustive parallel mode search (the TPU
-    replaces libaom's pruned search with brute force, SURVEY §7 #4)."""
+    order. Used by the encoder's exhaustive parallel mode search (the
+    device replaces libaom's pruned search with brute force, SURVEY §7 #4)."""
     preds = [
         dc_pred(top, left, n),
         v_pred(top, n),

@@ -1,12 +1,14 @@
 """Integer block transforms: DCT / ADST / identity / Walsh-Hadamard.
 
-TPU-first design note
----------------------
+Design note
+-----------
 The AV1 spec and CPU decoders (dav1d, libaom) realize the inverse transforms
-as butterfly networks — the right call when scalar multiplies are expensive.
-On TPU the MXU makes dense matmuls effectively free, so we realize each 1-D
-transform as a single **12-bit fixed-point integer matrix multiply** with
-spec-style round-half-up shifting (``round2``). The basis matrices use the
+as butterfly networks — the right call for scalar code. Here each 1-D
+transform is a single **12-bit fixed-point integer matrix multiply** over a
+large batch of blocks, with spec-style round-half-up shifting (``round2``):
+one batched einsum per pass instead of a data-dependent butterfly. No GPU
+has an int32 tensor-core product, so XLA lowers these einsums to its own
+integer loop fusions. The basis matrices use the
 same 12-bit ``cospi``/``sinpi`` precision as AV1 (cospi[j] =
 round(4096·cos(pi·j/128))), so numerics track the spec closely, and all
 arithmetic is exact int32 — encoder and decoder are bit-identical by
@@ -129,14 +131,7 @@ def forward_transform(residual: jnp.ndarray, tx_type: int, n: int) -> jnp.ndarra
     """Batched 2-D forward transform: (B, n, n) int32 residual -> coeffs.
 
     Output scale: 2^_FWD_SHIFT_EXTRA × orthonormal (AV1-like 3-bit headroom).
-    Routes through the hand-scheduled Pallas kernel when
-    LIBAVIF_TPU_PALLAS=1 (bit-identical; ops/pallas_kernels.py).
     """
-    if tx_type != WHT_WHT:
-        from .pallas_kernels import forward_transform_pallas, use_pallas
-
-        if use_pallas():
-            return forward_transform_pallas(residual, tx_type, n)
     if tx_type == WHT_WHT:
         h = jnp.asarray(_hadamard(n), dtype=jnp.int32)
         # Exact: coeff = H X Hᵀ (no rounding). Inverse divides by n².
@@ -159,13 +154,7 @@ def inverse_transform(coeffs: jnp.ndarray, tx_type: int, n: int) -> jnp.ndarray:
     Exactly inverts ``forward_transform``'s scaling: fwd gain is
     2^(2·cos_bit) / 2^(2·cos_bit - 3) = 2^3 over orthonormal, so the inverse
     applies the transposed kernels and shifts 2·cos_bit + 3 total.
-    Routes through the Pallas kernel when LIBAVIF_TPU_PALLAS=1.
     """
-    if tx_type != WHT_WHT:
-        from .pallas_kernels import inverse_transform_pallas, use_pallas
-
-        if use_pallas():
-            return inverse_transform_pallas(coeffs, tx_type, n)
     if tx_type == WHT_WHT:
         h = jnp.asarray(_hadamard(n), dtype=jnp.int32)
         t = jnp.einsum("ji,bjk->bik", h, coeffs.astype(jnp.int32))

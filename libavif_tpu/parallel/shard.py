@@ -6,7 +6,7 @@ skip cross-tile filtering entirely — read.c grid model, SURVEY.md §5
 communication; XLA partitions the vmapped program across the mesh with
 zero collectives. `exchange_cell_boundaries` is the halo primitive for
 future cross-cell filters (CDEF/LR at cell seams), built on shard_map +
-ppermute so the rows ride ICI neighbor links.
+ppermute (a device-to-device copy between neighbouring shards).
 """
 
 from __future__ import annotations
@@ -17,10 +17,7 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-try:
-    from jax import shard_map  # jax >= 0.8
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..codec import recon
@@ -83,7 +80,7 @@ def set_default_codec_mesh(mesh: Optional[Mesh]) -> None:
 )
 def _encode_packed_batch(packed, dc, ac, *, geoms, n, depth, lossless, speed, mesh,
                          search=(None, None)):
-    spec = NamedSharding(mesh, P(CODEC_MESH_AXES))  # frame axis over all chips
+    spec = NamedSharding(mesh, P(CODEC_MESH_AXES))  # frame axis over all devices
     packed = jax.lax.with_sharding_constraint(packed, spec)
     fn = lambda p: recon.encode_frame_device(  # noqa: E731
         p, dc, ac, geoms=geoms, n=n, depth=depth, lossless=lossless, speed=speed,
@@ -185,13 +182,13 @@ def decode_cells_sharded(levels, modes, dc_step, ac_step, *, n, depth, lossless,
 
 def exchange_cell_boundaries(cells, mesh: Mesh):
     """Halo primitive: every cell shard receives the bottom rows of its
-    upward neighbor along the "cells" axis (ppermute over ICI).
+    upward neighbor along the "cells" axis (ppermute).
 
     Returns (F, K, rows, Wp) halo rows; shard 0 receives zeros. This is
     the building block for cross-cell CDEF/loop-restoration at grid seams
     (the reference never filters across cells; we keep that at cell
     granularity but the halo path is required for in-cell filters whose
-    support crosses *chip* boundaries when one cell spans chips).
+    support crosses *device* boundaries when one cell spans devices).
     """
 
     def body(local):

@@ -1,5 +1,5 @@
 """Tracing / profiling hooks (SURVEY.md §5: the reference has none built
-in; the TPU build provides JAX profiler traces + per-stage timers).
+in; this engine provides JAX profiler traces + per-stage timers).
 
 Usage:
     from libavif_tpu.utils.trace import stage, timings, reset_timings

@@ -270,7 +270,7 @@ class TestCodecChoice:
         pim.load()
         assert pim.mode == "RGBA"
 
-    def test_native_choice_keeps_tpu_codec(self):
+    def test_native_choice_keeps_own_codec(self):
         img = make_image(48, 32, seed=33)
         enc = Encoder()
         enc.quality = 80

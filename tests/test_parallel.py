@@ -1,7 +1,7 @@
 """Multi-chip sharding tests on the 8-device virtual CPU mesh.
 
 The reference has no multi-node tests (nothing distributed, SURVEY.md §4);
-these are the TPU build's own: sharded-vs-single bit-exactness and halo
+these are this engine's own: sharded-vs-single bit-exactness and halo
 exchange correctness.
 """
 

@@ -81,3 +81,80 @@ def test_device_rd_conformant_and_comparable(big_image, monkeypatch):
 
     if O.available():
         assert O.decode(data_dev) is not None
+
+
+def _plane(h, w, bd, seed):
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 1 << bd, (h + 8, w + 8)).astype(np.float64)
+    k = 5
+    c = np.pad(np.cumsum(np.cumsum(base, 0), 1), ((1, 0), (1, 0)))
+    sm = (c[k:, k:] - c[:-k, k:] - c[k:, :-k] + c[:-k, :-k]) / (k * k)
+    return np.clip(sm[:h, :w], 0, (1 << bd) - 1).astype(np.int32)
+
+
+@pytest.mark.parametrize("hw", [(37, 61), (72, 106)])
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("speed", [5, 6])
+def test_satd_and_delta_tables_equal_numpy(speed, bd, hw):
+    """The device program's SATD and angle-delta tables are exact: they
+    equal a numpy recomputation with the planner's own predictors."""
+    from libavif_tpu.codec.av1 import intra as I
+    from libavif_tpu.codec.av1 import rdsearch as R
+    from libavif_tpu.codec.av1 import rdsearch_device as RDD
+    from libavif_tpu.codec.av1 import tables as T
+
+    src = _plane(*hw, bd, seed=speed + bd)
+    q = 100
+    fn, meta, args, _ = RDD.cost_program(src, q, speed, bd)
+    flat = np.asarray(fn(*args))
+    lam_x16 = max(1, T.ac_q(q, bd) >> 1)
+    dts = [0, -3, -2, -1, 1, 2, 3]
+    seen = set()
+    for kind, px, shape, lo, hi in meta["layout"]:
+        if kind not in ("satd", "delta"):
+            continue
+        seen.add(kind)
+        tab = flat[lo:hi].reshape(shape).astype(np.int64)
+        blocks, above, left, corner, _, _ = R._borders_for_size(src, px, bd)
+        n = blocks.shape[0]
+        modes = meta["cand_modes"] if kind == "satd" else meta["dir_modes"]
+        for i, m in enumerate(modes):
+            if kind == "satd":
+                want = R.satd(blocks - R.predict_batch(m, above, left, corner, n, px, px, bd))
+                bits = R._MODE_BITS_X16[m] + (
+                    R._ANGLE_BITS_X16 if I.is_directional(m) and px * px >= 64 else 0)
+                want = want + ((lam_x16 * bits) >> 4)
+            else:
+                # the planner's own refinement: base prediction for delta
+                # 0, plain directional interpolation for the others
+                costs = np.stack([
+                    R.satd(blocks - (R.predict_batch(m, above, left, corner, n, px, px, bd)
+                                     if d == 0 else R._directional(
+                        above, left, corner, n, px, px, m, bd,
+                        angle=I.MODE_TO_ANGLE[m] + 3 * d)))
+                    for d in dts])
+                want = np.asarray(dts)[np.argmin(costs, axis=0)]
+            np.testing.assert_array_equal(tab[i], want, err_msg=f"{kind} px={px} mode={m}")
+    assert seen == {"satd", "delta"}
+
+
+def _raising_program(*a, **k):
+    def fn(*args):
+        raise RuntimeError("device program failed")
+
+    return fn, {"txs_cfg": ()}
+
+
+@pytest.mark.parametrize("batch", [False, True], ids=["encode", "encode_batch"])
+def test_device_rd_failure_propagates(big_image, monkeypatch, batch):
+    """No silent numpy fallback: a failing device RD program fails the encode."""
+    from libavif_tpu.api import encode_batch
+    from libavif_tpu.codec.av1 import rdsearch_device as RDD
+
+    monkeypatch.setenv("LIBAVIF_TPU_DEVICE_RD_MIN_PELS", "1")
+    monkeypatch.setattr(RDD, "_compiled", _raising_program)
+    with pytest.raises(RuntimeError, match="device program failed"):
+        if batch:
+            encode_batch([big_image, big_image], quality=70, speed=6)
+        else:
+            encode(big_image, quality=70, speed=6)

@@ -9,7 +9,7 @@ Methodology (VERDICT round-2 "What's weak" #2: BD-rate, >=5 images,
   - Distortion is Y-plane PSNR in YUV domain against the source planes.
   - Summary metric is BD-rate (Bjontegaard delta rate, piecewise-cubic
     integration over the overlapping PSNR interval) and BD-PSNR, ours
-    vs libaom speed 6, for (a) the own-format TPU codec and (b) the
+    vs libaom speed 6, for (a) the own-format device codec and (b) the
     spec-AV1 encoder (-c spec).
 
 Run on CPU:  python tools/rd_report.py [out.md] [--skip-spec]
@@ -233,7 +233,7 @@ def main(out_path=None, skip_spec=False):
         ]
         own_pts, spec_pts, aom_pts = [], [], []
         for q in qualities:
-            # the own-format TPU codec explicitly (spec-AV1 is the
+            # the own-format device codec explicitly (spec-AV1 is the
             # product default now, measured in the spec column)
             ours = encode(img, quality=q, codec="native")
             out = decode(ours)
